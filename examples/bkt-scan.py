@@ -1,22 +1,23 @@
 #!/usr/bin/env python
 """BKT scan at L=256 (BASELINE config #4): a fleet κ-scan across the W=1
 critical coupling κ_c ≈ 0.74 (reference publication/generalized-bkt.rst:13)
-driven by the Pallas-fused neighborhood kernel, with
+driven by ``sample_fleet`` over the neighborhood update, with
 
-* inline ActionDensity / WindingSquared measured *in-kernel* every sweep, and
+* ActionDensity / WindingSquared measured on every kept record,
 * periodic spin-correlator measurements: Spin_Spin = correlation(e^{iφ}, e^{iφ})
-  evaluated on-device between fused launches (same math as
-  observables/spin.py:Spin_Spin.Villain), bootstrapped into
-  SpinSusceptibility / SpinSusceptibilityScaled (Δ = W²/8 at finite W).
+  (same math as observables/spin.py:Spin_Spin.Villain), bootstrapped into
+  SpinSusceptibility / SpinSusceptibilityScaled (Δ = W²/8 at finite W), and
+* at W>1, classic worms after the sweeps of every record: they restore
+  ergodicity across the Z_W winding sectors and supply the inline vortex
+  correlator.
 
 Across the scan the scaled susceptibility χ_S/L^{D−2Δ} rises steeply through
 κ_c as the spin correlator turns from exponential decay to the critical
 power law — the generalized-BKT signature this framework exists to measure.
 
-Runtime: a few minutes on one v5e chip at the default settings (most of it
-first-launch compilation); scale --chains/--records up for physics-grade error
-bars.  On CPU backends the script automatically shrinks to L=64 so it stays
-runnable end-to-end anywhere.
+Defaults are sized for a GPU; on a CPU backend they shrink to L=64 and 8
+chains so the script stays runnable end-to-end anywhere.  Scale
+--chains/--records up for physics-grade error bars.
 """
 
 # Allow running this script directly from anywhere: put the repo root (the
@@ -29,7 +30,6 @@ for _p in _pathlib.Path(__file__).resolve().parents:
             _sys.path.insert(0, str(_p))
         break
 
-import argparse
 import time
 
 import numpy as np
@@ -41,16 +41,19 @@ import supervillain_tpu as sv
 from supervillain_tpu.analysis import Bootstrap, Uncertain
 from supervillain_tpu.ensemble import Ensemble
 from supervillain_tpu.configurations import Configurations
+from supervillain_tpu.generators import KeepEvery, Sequentially, villain as gv
+from supervillain_tpu.parallel import sample_fleet, check_truncation_budget
+from supervillain_tpu.utils import sized
 
 
 def main():
-    on_tpu = jax.default_backend() not in ('cpu',)
+    sv.utils.enable_compile_cache()
     ap = sv.cli.ArgumentParser(description=__doc__)
-    ap.add_argument('--L', type=int, default=256 if on_tpu else 64)
-    ap.add_argument('--chains', type=int, default=32 if on_tpu else 8)
+    ap.add_argument('--L', type=int, default=sized(256, 64))
+    ap.add_argument('--chains', type=int, default=sized(32, 8))
     ap.add_argument('--therm-sweeps', type=int, default=400)
     ap.add_argument('--records', type=int, default=24)
-    ap.add_argument('--thin', type=int, default=25, help='fused sweeps per record')
+    ap.add_argument('--thin', type=int, default=25, help='sweeps per record')
     ap.add_argument('--kappas', type=float, nargs='+',
                     default=[0.55, 0.65, 0.74, 0.85, 1.00])
     ap.add_argument('--p_n', type=float, default=0.05,
@@ -67,12 +70,12 @@ def main():
                     help='finite vortex constraint; Δ = W²/8 scales the '
                          'susceptibility, Δn proposals come in multiples of W')
     ap.add_argument('--worms', type=int, default=None,
-                    help='in-kernel classic worms per `thin` sweeps (fused '
-                         'Hammer kernel).  Default: 1 at W>1, 0 at W=1.  At '
-                         'W>1 the bare neighborhood kernel only changes n in '
-                         'multiples of W, freezing the Z_W winding sectors at '
-                         'their cold-start value — worms restore ergodicity '
-                         'there AND supply the inline vortex correlator.')
+                    help='classic worms per record, after its sweeps.  '
+                         'Default: 1 at W>1, 0 at W=1.  At W>1 the bare '
+                         'neighborhood update only changes n in multiples of '
+                         'W, freezing the Z_W winding sectors at their '
+                         'cold-start value — worms restore ergodicity there '
+                         'AND supply the inline vortex correlator.')
     args = ap.parse_args()
 
     N, B = args.L, args.chains
@@ -86,68 +89,17 @@ def main():
     DeltaV = 2 / W ** 2
     scaleV = N ** (L.D - 2 * DeltaV)
 
-    if on_tpu and worms > 0 and B % max(1, 128 // N) != 0:
-        print(f'# chains={B} not divisible by the N={N} packing factor '
-              f'{max(1, 128 // N)}; falling back to worms=0 (sweeps only)')
-        worms = 0
-    if on_tpu and worms > 0:
-        # Fused Hammer: sweeps + in-kernel worms in one launch, at EVERY
-        # geometry — monolithic sweep body through N=256, strip-chunked body
-        # above (the round-4 composed strip-sweeps + standalone-worm fallback
-        # is gone).  At N < 128 chains are packed 128/N per program so the
-        # worm section fills the lanes.
-        from supervillain_tpu.ops.pallas_hammer import hammer_sweeps
-        cpp = 1 if N >= 128 else max(1, 128 // N)
-
-        def neighborhood_sweeps(seed, phi, n, *, N, kappa, W, interval_phi,
-                                interval_n, sweeps, p_n=None):
-            # Scale the worm count with the launch length so thermalization
-            # chunks keep the same worms-per-sweep density as measurements.
-            # Worms are capped at 64·N² moves (exact truncation-rollback):
-            # the worm-length distribution's tail in the vortex-plasma phase
-            # can realize single excursions long enough to trip the TPU
-            # runtime watchdog; the recorded truncation fraction bounds the
-            # (χ_V-estimator-only) bias.
-            w = max(1, (worms * sweeps) // max(args.thin, 1))
-            return hammer_sweeps(seed, phi, n, N=N, kappa=kappa, W=W,
-                                 interval_phi=interval_phi,
-                                 interval_n=interval_n, sweeps=sweeps,
-                                 worms=w, p_n=p_n, chains_per_program=cpp,
-                                 max_worm_moves=64 * N * N)
-    elif on_tpu:
-        from supervillain_tpu.ops.pallas_sweep import neighborhood_sweeps
-    else:
-        # CPU fallback with the same signature: vmapped XLA NeighborhoodUpdate
-        # (the Pallas kernel is TPU-only).  Keeps the example runnable anywhere.
-        from functools import partial
-        from supervillain_tpu.generators.villain import NeighborhoodUpdate
-
-        @partial(jax.jit, static_argnames=('N', 'kappa', 'W', 'interval_phi',
-                                           'interval_n', 'sweeps', 'p_n'))
-        def neighborhood_sweeps(seed, phi, n, *, N, kappa, W, interval_phi,
-                                interval_n, sweeps, p_n=None):
-            S = sv.Villain(sv.Lattice2D(N), kappa, W)
-            G = NeighborhoodUpdate(S, interval_phi=interval_phi,
-                                   interval_n=interval_n, p_n=p_n)
-            BB = phi.shape[0]
-
-            def chain(key, phi1, n1):
-                def body(carry, k):
-                    cfg, st = carry
-                    cfg, st, _ = G.step(k, cfg, st)
-                    return (cfg, st), None
-                (cfg, st), _ = jax.lax.scan(
-                    body, ({'phi': phi1, 'n': n1}, G.init_stats()),
-                    jax.random.split(key, sweeps))
-                inline = {
-                    'ActionDensity': S(cfg['phi'], cfg['n']) / (N * N),
-                    'WindingSquared': jnp.mean(
-                        sv.ops.calculus.d(S.Lattice, 1, cfg['n']).astype(float) ** 2),
-                }
-                return cfg['phi'], cfg['n'], st[G.name]['accepted'], inline
-            keys = jax.vmap(lambda i: jax.random.fold_in(
-                jax.random.key(seed.astype(jnp.uint32)), i))(jnp.arange(BB))
-            return jax.vmap(chain)(keys, phi, n)
+    def generator(S):
+        """One application per worm (or per record without worms): the
+        record's share of sweeps, then a worm capped at 64·N² moves (an exact
+        truncation-rollback; the recorded truncation fraction bounds the
+        χ_V-estimator-only bias)."""
+        sweep = gv.NeighborhoodUpdate(S, interval_phi=0.7, interval_n=1, p_n=args.p_n)
+        if worms == 0:
+            return sweep, args.thin
+        per_worm = max(1, args.thin // worms)
+        sweeps = KeepEvery(per_worm, sweep) if per_worm > 1 else sweep
+        return Sequentially([sweeps, gv.ClassicWorm(S, max_moves=64 * N * N)]), worms
 
     @jax.jit
     def winding_sectors(n):
@@ -165,8 +117,7 @@ def main():
         """Per-chain Spin_Spin (N, N) real part, from the current φ."""
         cdtype = jnp.complex64
         spin = jnp.exp(1j * phi[:, 0].astype(cdtype))
-        corr = jax.vmap(lambda s: L.correlation(s, s))(spin)
-        return corr.real  # complex arrays cannot cross the device boundary here
+        return jax.vmap(lambda s: L.correlation(s, s))(spin).real
 
     expect = '  (κ_c ≈ 0.74 expected)' if W == 1 else ''
     print(f'# L={N} chains={B} W={W} Δ={Delta} Δ_V={DeltaV} worms/record={worms}{expect}')
@@ -179,64 +130,44 @@ def main():
     results = {}
     for kappa in args.kappas:
         t0 = time.perf_counter()
-        rng = np.random.default_rng(20260820)
-        phi = jnp.zeros((B, 1, N, N), jnp.float32)
-        n = jnp.zeros((B, 2, N, N), jnp.int32)
-
-        def launch(phi, n, sweeps):
-            return neighborhood_sweeps(
-                jnp.int32(rng.integers(0, 2 ** 31 - 1)), phi, n, N=N,
-                kappa=kappa, W=W, interval_phi=0.7, interval_n=1,
-                p_n=args.p_n, sweeps=sweeps)
-
-        # Chunk thermalization into bounded launches (a single launch of ~1e5
-        # sweeps would run for minutes; chunks keep each launch O(10s)).
-        remaining = args.therm_sweeps
-        while remaining > 0:
-            chunk = min(remaining, 4096)
-            phi, n, acc, _ = launch(phi, n, chunk)
-            remaining -= chunk
-
-        S_rows, W2_rows = [], []
+        S_action = sv.Villain(L, kappa, W)
+        G, per_record = generator(S_action)
+        # Thermalize inside the first records, then cut them.
+        lead = -(-args.therm_sweeps // args.thin)
+        fleet = sample_fleet(S_action, G, chains=B, steps=lead + args.records,
+                             thin=per_record, seed=20260820)
+        phi = fleet.columns['phi'][lead:]                  # (records, B, 1, N, N)
+        kept = fleet.pooled_ensemble(cut=lead)
+        S_col = np.asarray(kept.ActionDensity).reshape(args.records, B)
+        W2_col = np.asarray(kept.WindingSquared).reshape(args.records, B)
         chi_col = np.empty((args.records, B))
-        histV = np.zeros((B, N, N))
-        accepted = 0.0
-        truncated = 0.0
         for r in range(args.records):
-            phi, n, acc, inline = launch(phi, n, args.thin)
-            accepted += float(acc.sum())
-            if 'Worm_Truncated' in inline:
-                truncated += float(np.asarray(inline['Worm_Truncated']).sum())
-            # ActionDensity/WindingSquared come back per *program* (chains may
-            # be packed several per program at small L) — still independent
-            # samples, just fewer of them.
-            S_rows.append(np.asarray(inline['ActionDensity']))
-            W2_rows.append(np.asarray(inline['WindingSquared']))
-            if 'Vortex_Vortex' in inline:
-                histV += np.asarray(inline['Vortex_Vortex'])
-            corr = np.asarray(spin_correlator(phi))        # (B, N, N)
+            corr = np.asarray(spin_correlator(phi[r]))     # (B, N, N)
             chi_col[r] = corr.sum(axis=(1, 2)) / corr[:, 0, 0]
-        S_col = np.stack(S_rows)
-        W2_col = np.stack(W2_rows)
-        wt, wx = winding_sectors(n)
+        histV = (fleet.columns['Vortex_Vortex'][lead:].sum(axis=0)
+                 if worms > 0 else None)                  # (B, N, N)
+        wt, wx = winding_sectors(fleet.final['n'])
         nontrivial_sectors = float((np.asarray(wt) != 0).mean()
                                    + (np.asarray(wx) != 0).mean()) / 2
-        acc_frac = accepted / (B * N * N * args.thin * args.records)
+        sweep_stats = fleet.stats['NeighborhoodUpdate']
+        acc_frac = float(sweep_stats['accepted']) / float(sweep_stats['proposed'])
 
-        # Bootstrap over per-chain (or per-program) means: chains are
-        # independent by construction, while records within one chain stay
-        # correlated whenever thin < τ — pooling them would understate errors.
-        # Truncation budget (VERDICT r4 #8): record the truncated fraction of
-        # measurement worms per scan point, and warn loudly past ~1e-3 — the
-        # worm-inclusive inline correlator carries a documented
-        # short-separation bias whenever truncation fires, so a silently
-        # truncation-heavy point must not be used quantitatively.
-        from supervillain_tpu.parallel.fused_fleet import check_truncation_budget
-        trunc_frac = check_truncation_budget(
-            truncated, worms * args.records * B, context=f'kappa={kappa}: ') \
-            if worms > 0 else 0.0
+        # Bootstrap over per-chain means: chains are independent by
+        # construction, while records within one chain stay correlated
+        # whenever thin < τ — pooling them would understate errors.
+        # Truncation budget: record the truncated fraction of worms per scan
+        # point, and warn loudly past ~1e-3 — the worm-inclusive inline
+        # correlator carries a documented short-separation bias whenever
+        # truncation fires, so a silently truncation-heavy point must not be
+        # used quantitatively.
+        truncated, trunc_frac = 0.0, 0.0
+        if worms > 0:
+            worm_stats = fleet.stats['ClassicWorm']
+            total = float(worm_stats['sweeps'])
+            truncated = total - float(worm_stats['acceptance'])
+            trunc_frac = check_truncation_budget(truncated, total,
+                                                 context=f'kappa={kappa}: ')
 
-        S_action = sv.Villain(L, kappa, W)
         cols = {'SpinSusceptibility': chi_col.mean(axis=0)}
         if worms > 0:
             origin = np.maximum(histV[:, 0, 0], 1e-30)

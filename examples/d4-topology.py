@@ -1,19 +1,18 @@
 #!/usr/bin/env python
-"""D=4 topological-sector workload (VERDICT r3 #5): fleet-run the 4-dimensional
+"""D=4 topological-sector workload: fleet-run the 4-dimensional
 Villain model and measure the observables that make D=4 the reference's
 distinctive sector — the topological charge density
 Q = (1/(2π)² · 1/4!) εᵐⁿᵖᑫ dn_mn dn_pq and its square, plus the winding
 correlations (reference /root/reference/supervillain/observable/topological.py:
 110-157 and test/test_topological_charge.py).
 
-The fused Pallas kernels are D=2-only by design; in D≥3 the XLA roll-stencil
-path IS the production path (masked dense color passes fuse into a handful of
-HLO kernels — no scalar loops, static shapes, MXU-adjacent VPU work), so this
-doubles as the committed D=4 throughput number.
+The sampler is the dimension-general XLA roll-stencil path (masked dense
+color passes that XLA fuses into a handful of kernels); the worm is D=2-only,
+so the D=4 Hammer is Site+Link+Exact+Cohomology.
 
 At W=1 vortices are unconstrained and ⟨Q²⟩ > 0; at W=∞ dn = 0 exactly so
-Q ≡ 0 identically — both are checked.  Defaults run 8⁴ in a couple of minutes
-on one v5e chip; --N 12 scales to 12⁴.
+Q ≡ 0 identically — both are checked.  Defaults are sized for a GPU (8⁴;
+--N 12 scales to 12⁴) and shrink to 3⁴ on a CPU backend.
 """
 
 # Allow running this script directly from anywhere.
@@ -34,16 +33,17 @@ import supervillain_tpu as sv
 from supervillain_tpu.analysis import Bootstrap, Uncertain
 from supervillain_tpu.generators import villain as gv
 from supervillain_tpu.parallel import sample_fleet
+from supervillain_tpu.utils import sized
 
 
 def main():
-    on_tpu = jax.default_backend() not in ('cpu',)
+    sv.utils.enable_compile_cache()
     ap = sv.cli.ArgumentParser(description=__doc__)
-    ap.add_argument('--N', type=int, default=8 if on_tpu else 3)
-    ap.add_argument('--chains', type=int, default=32 if on_tpu else 4)
-    ap.add_argument('--steps', type=int, default=60 if on_tpu else 10)
+    ap.add_argument('--N', type=int, default=sized(8, 3))
+    ap.add_argument('--chains', type=int, default=sized(32, 4))
+    ap.add_argument('--steps', type=int, default=sized(60, 10))
     ap.add_argument('--thin', type=int, default=2)
-    ap.add_argument('--cut', type=int, default=20 if on_tpu else 4)
+    ap.add_argument('--cut', type=int, default=sized(20, 4))
     ap.add_argument('--kappas', type=float, nargs='+', default=[0.2, 0.4, 0.6])
     ap.add_argument('--W', type=sv.cli.W, default=1)
     ap.add_argument('--bootstraps', type=int, default=100)

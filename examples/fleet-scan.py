@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""TPU-native capability the reference lacks: a fleet of independent chains sharded
+"""Capability the reference lacks: a fleet of independent chains sharded
 over the device mesh, scanning κ across the BKT transition with inline observables
 and pooled bootstrap analysis + HDF5 output (the BASELINE "pod-scale" workload shape,
 scaled to the available devices)."""

@@ -2,7 +2,7 @@
 """Three-volume finite-size-scaling analysis of the W=2 generalized-BKT scan
 (round-4 artifact refresh): reads results/bkt-scan-W2-L{64,128,256}.h5 and
 prints the scaled spin/vortex susceptibilities, the effective exponents, and
-the crossing estimates that pin κ_c(W=2).  Pure host-side analysis (no TPU)."""
+the crossing estimates that pin κ_c(W=2).  Pure host-side analysis (no accelerator)."""
 
 import pathlib
 import sys

@@ -21,7 +21,7 @@ and prints
 * chord-model exponent fits η_V(κ) from any saved histograms/orbit profiles
   (tools/w3_eta_fit.py), to compare with the prediction η_V(κ_c) = 2Δ_V = 4/9.
 
-Pure host-side analysis (no TPU).
+Pure host-side analysis (no accelerator).
 """
 
 import pathlib

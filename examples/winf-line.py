@@ -11,14 +11,16 @@ correlator gives the exact power law
 with no BKT-style logarithmic corrections (there is no marginal operator —
 nothing to run).  So the two-volume effective exponent of the spin
 susceptibility must land on 1/(2πκ) at every κ — measured here at three
-volumes per κ on the fused W=∞ Hammer kernels (z-mode sweeps + worms; worms
-keep the winding sectors formally ergodic, cf. docs/physics-results.md §5).
+volumes per κ with ``sample_fleet`` over the W=∞ stack: z-mode neighborhood
+sweeps (compound Δφ, Δz with Δn = dΔz, so dn = 0 exactly) and one worm per
+record (worms keep the winding sectors formally ergodic, cf.
+docs/physics-results.md §5).
 
 (The reference quotes the scaling dimension in a different R-normalization —
 supervillain/observable/spin.py:234 — but the measurable power of the
 two-point function is convention-free, which is what this workload checks.)
 
-Runtime: ~6 minutes on one v5e chip at the defaults.
+Defaults are sized for a GPU; on a CPU backend they shrink to a smoke test.
 """
 
 # Allow running this script directly from anywhere.
@@ -40,59 +42,49 @@ import supervillain_tpu as sv
 from supervillain_tpu.analysis import Uncertain
 from supervillain_tpu.analysis.scaling import (effective_exponent,
                                                effective_exponent_error)
+from supervillain_tpu.generators import Generator, KeepEvery, Sequentially, villain as gv
+from supervillain_tpu.parallel import sample_fleet, chain_mesh
+from supervillain_tpu.utils import sized
+
+
+class WithSpinSusceptibility(Generator):
+    """Wrap a Villain generator so each step also reports the spin
+    susceptibility ratio Σ_r C(r) / C(0) of its configuration inline."""
+
+    def __init__(self, generator, action):
+        self.generator, self.Action, self.name = generator, action, generator.name
+
+    def init_stats(self):
+        return self.generator.init_stats()
+
+    def step(self, key, cfg, stats):
+        cfg, stats, inline = self.generator.step(key, cfg, stats)
+        spin = jnp.exp(1j * cfg['phi'][0].astype(jnp.complex64))
+        corr = self.Action.Lattice.correlation(spin, spin).real
+        return cfg, stats, inline | {'chi': corr.sum() / corr[0, 0]}
 
 
 def main():
-    on_tpu = jax.default_backend() not in ('cpu',)
+    sv.utils.enable_compile_cache()
     ap = sv.cli.ArgumentParser(description=__doc__)
-    ap.add_argument('--Ls', type=int, nargs='+', default=[64, 128, 256])
+    ap.add_argument('--Ls', type=int, nargs='+', default=sized([64, 128, 256], [4, 8]))
     ap.add_argument('--kappas', type=float, nargs='+',
-                    default=[0.5 / np.pi, 1.0 / np.pi, 2.0 / np.pi])
-    ap.add_argument('--records', type=int, default=24)
+                    default=sized([0.5 / np.pi, 1.0 / np.pi, 2.0 / np.pi], [1.0 / np.pi]))
+    ap.add_argument('--records', type=int, default=sized(24, 4))
     ap.add_argument('--therm-factor', type=int, default=8)
     args = ap.parse_args()
 
-    if not on_tpu:
-        print('# CPU backend: this is a TPU workload (fused W=inf kernels).')
-        return None
-
-    from supervillain_tpu.ops.pallas_hammer import hammer_sweeps
-    rng = np.random.default_rng(20260822)
-
     def chi_at(N, kappa):
         B = max(16, 4096 // N)
-        cpp = max(1, 128 // N)
-        if B % cpp:
-            B += cpp - B % cpp
-        L2 = sv.Lattice2D(N)
-        therm = args.therm_factor * N * N
+        S = sv.Villain(sv.Lattice2D(N), kappa, W=float('inf'))
         thin = max(64, N * N // 8)
-
-        def launch(phi, n, sweeps):
-            return hammer_sweeps(
-                jnp.int32(rng.integers(0, 2 ** 31 - 1)), phi, n, N=N,
-                kappa=kappa, W=float('inf'), interval_phi=1.5, interval_n=1,
-                sweeps=sweeps, worms=max(1, sweeps // thin),
-                chains_per_program=cpp, max_worm_moves=64 * N * N)
-
-        @jax.jit
-        def spin_chi(phi):
-            spin = jnp.exp(1j * phi[:, 0].astype(jnp.complex64))
-            corr = jax.vmap(lambda s: L2.correlation(s, s))(spin).real
-            return corr.sum(axis=(1, 2)) / corr[:, 0, 0]
-
-        phi = jnp.zeros((B, 1, N, N), jnp.float32)
-        n = jnp.zeros((B, 2, N, N), jnp.int32)
-        remaining = therm
-        while remaining > 0:
-            c = min(remaining, 4096)
-            phi, n, _, _ = launch(phi, n, c)
-            remaining -= c
-        chis = np.empty((args.records, B))
-        for r in range(args.records):
-            phi, n, _, _ = launch(phi, n, thin)
-            chis[r] = np.asarray(spin_chi(phi))
-        per_chain = chis.mean(axis=0)
+        sweeps = KeepEvery(thin, gv.ExactNeighborhoodUpdate(S, interval_phi=1.5))
+        G = WithSpinSusceptibility(
+            Sequentially([sweeps, gv.ClassicWorm(S, max_moves=64 * N * N)]), S)
+        lead = -(-args.therm_factor * N * N // thin)
+        fleet = sample_fleet(S, G, chains=B, steps=lead + args.records, seed=20260822,
+                             mesh=chain_mesh(jax.devices()[:1]), keep_fields=False)
+        per_chain = fleet.columns['chi'][lead:].mean(axis=0)
         return per_chain.mean(), per_chain.std(ddof=1) / np.sqrt(B)
 
     print(f'# W=inf line of fixed points: eta(kappa) = 1/(2 pi kappa) exactly '

@@ -1,12 +1,12 @@
-"""supervillain_tpu — TPU-native lattice Monte Carlo for the Villain model.
+"""supervillain_tpu — accelerator lattice Monte Carlo for the Villain model.
 
-A brand-new JAX/XLA/Pallas framework with the capability surface of
+A JAX/XLA framework with the capability surface of
 ``evanberkowitz/supervillain``: the Villain (φ, n) and dual Worldline (m, v)
 formulations of the compact boson on D-dimensional periodic lattices with the Z_W
 vortex-constraint generalization, sampled by checkerboard-vectorized Metropolis sweeps
 and worm algorithms, measured by a registry of observables and derived quantities, and
 analyzed with autocorrelation / blocking / weighted-bootstrap machinery with HDF5
-persistence.  Chains vmap/shard across TPU meshes.
+persistence.  Chains vmap/shard across device meshes.
 """
 
 from . import meta

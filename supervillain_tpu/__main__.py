@@ -11,9 +11,9 @@ BANNER = rf'''
           |_|                                      |_____| |_|
 
 supervillain-tpu {meta.version} ({meta.nickname})
-TPU-native lattice Monte Carlo for the Villain model of the compact boson.
+Accelerator lattice Monte Carlo for the Villain model of the compact boson.
 Villain (φ, n) and Worldline (m, v) dual formulations; Z_W vortex constraint;
-JAX/XLA/Pallas compute; chains vmapped and sharded over TPU meshes.
+JAX/XLA compute; chains vmapped and sharded over device meshes.
 '''
 
 if __name__ == '__main__':

@@ -1,10 +1,7 @@
 """Steady-state D>2 throughput: su/s vs chain count for the XLA generator path.
 
-The fused Pallas kernels are D=2-only by design; in D≥3 the XLA roll-stencil
-path IS the production path.  Round 4 reported only whole-workload rates
-*including per-κ compile* (1–2×10⁶ su/s at 8⁴ with 16–32 chains — VERDICT r4
-weak-item #5); this harness measures what the reference's profiling
-methodology asks for (/root/reference/docs/superpowers/specs/
+The sampler is the dimension-general XLA roll-stencil path in every D.  This
+harness measures what the reference's profiling methodology asks for (/root/reference/docs/superpowers/specs/
 2026-06-25-numba-form-kernels-design.md:19-44): the compile-excluded
 steady-state rate, its saturation in chain count, and which roof binds.
 
@@ -14,11 +11,11 @@ arrays of Λ = N^D sites per color pass (proposals, ΔS partials per direction,
 accept masks, applied fields — XLA fuses elementwise chains but each fusion
 boundary writes one array).  At 8⁴ the whole state is ~100 kB so everything is
 cache/HBM-bandwidth-light; the binding resource is LAUNCH/dispatch overhead
-until the chain batch makes each fused kernel big enough, after which the VPU
-does ~O(100) ops/su like the D=2 path.  The measured curve below shows which
+until the chain batch makes each fused kernel big enough, after which the
+per-site arithmetic and memory traffic bind, as in the D=2 path.  The measured curve below shows which
 regime each batch size is in.
 
-Run: ``python -m supervillain_tpu.benchmark.dimension`` (TPU; CPU works but
+Run: ``python -m supervillain_tpu.benchmark.dimension`` (on a GPU; a CPU run
 measures the host).
 """
 

@@ -82,7 +82,7 @@ def scaling_efficiency(N=32, chains_per_device=8, steps=10, device_counts=None,
         # efficiency therefore compares n devices against an inflated
         # baseline; per-CORE efficiency divides that inflation out and is the
         # number that predicts real multi-chip behavior (one chip per
-        # process, no shared pool).  See MULTICHIP.md §weak-scaling.
+        # process, no shared pool).
         cores_busy = (time.process_time() - cpu0) / max(elapsed, 1e-9)
         sweeps_per_s = chains * steps / elapsed
         su_per_s = sweeps_per_s * N * N

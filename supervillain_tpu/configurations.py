@@ -3,7 +3,7 @@
 ``Configurations`` is a dict of per-field arrays with the draw axis first, with
 attribute access, integer/slice indexing, and ``|=`` merging — the capability of
 /root/reference/supervillain/configurations.py and batch.py, without the ndarray
-subclassing: on the TPU side draws are produced as stacked ``lax.scan`` outputs and
+subclassing: on the device side draws are produced as stacked ``lax.scan`` outputs and
 land here as plain NumPy arrays.
 """
 

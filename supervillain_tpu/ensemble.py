@@ -1,7 +1,7 @@
 """Markov-chain driver: ``lax.scan`` over generator steps.
 
 Capability parity with /root/reference/supervillain/ensemble.py:17-336, reorganized
-for the TPU execution model: the whole chain is one jitted scan (optionally chunked
+for an accelerator: the whole chain is one jitted scan (optionally chunked
 for progress reporting / bounded device memory), draws land on the host as stacked
 NumPy columns, and observables attach lazily through the registry descriptors.
 """

@@ -3,7 +3,3 @@ from .combining import Sequentially, KeepEvery
 from .monitor import Logger
 from . import villain
 from . import worldline
-from .villain_fused import (FusedNeighborhoodUpdate, FusedExactNeighborhoodUpdate,
-                            FusedHammer, FusedClassicWorm)
-from .worldline_fused import (FusedWorldlineUpdate, FusedWorldlineWorm,
-                              FusedWorldlineHammer)

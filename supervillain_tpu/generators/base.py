@@ -9,7 +9,7 @@ chains.  ``cfg`` is the field pytree, ``stats`` an acceptance-accounting pytree 
 sub-dict per generator tag), and ``inline`` a dict of per-step inline-observable
 arrays with static shapes (declared by :meth:`inline_shapes`).
 
-This is the TPU-functional reformulation of the reference's mutate-a-dict interface
+This is the functional reformulation of the reference's mutate-a-dict interface
 (/root/reference/supervillain/generator/generator.py:12-41); the stateful
 ``step(cfg) -> cfg`` shell and ``report()`` strings are layered on top for API parity.
 """

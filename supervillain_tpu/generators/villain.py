@@ -3,7 +3,7 @@
 Each update is a pure jittable kernel over the field pytree ``{'phi', 'n'}``.
 Checkerboard colors are *static masks* — a whole color's proposals, ΔS evaluation
 (algebraic, via one fused ``face_sum``), Metropolis test, and application happen as a
-few fused elementwise TPU kernels; the loop over colors is a static Python loop.
+few fused elementwise device kernels; the loop over colors is a static Python loop.
 
 Update semantics match the reference generator-for-generator:
     SiteUpdate           /root/reference/supervillain/generator/villain/site.py:13-132

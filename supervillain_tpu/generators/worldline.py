@@ -3,7 +3,7 @@
 Pure jittable kernels over the field pytree ``{'m', 'v'}`` maintaining the constraint
 ``δm = 0``.  The reference's input-sparse operators (delta_sparse / coface_sum_at,
 /root/reference/supervillain/lattice/compact.py:1042-1285) exist to avoid O(volume)
-work on a CPU; on TPU the masked *dense* forms are the fast path (everything fuses),
+work on a CPU; on an accelerator the masked *dense* forms are the fast path (everything fuses),
 so each (color, component) pass works on full forms with static masks.
 
 Update semantics match the reference generator-for-generator:

@@ -71,15 +71,10 @@ _SPEC_ARGS = {
     'CohomologyUpdate': ('interval_h',),
     'NeighborhoodUpdate': ('interval_phi', 'interval_n', 'p_n'),
     'ExactNeighborhoodUpdate': ('interval_phi', 'interval_z', 'p_z'),
-    'FusedNeighborhoodUpdate': ('interval_phi', 'interval_n', 'sweeps_per_step', 'p_n'),
-    'FusedExactNeighborhoodUpdate': ('interval_phi', 'interval_z', 'sweeps_per_step', 'p_z'),
     'VortexUpdate': ('interval_v',),
     'CoexactUpdate': ('interval_t',),
     'WrappingUpdate': ('interval_w',),
     'PlaquetteUpdate': (),
-    'FusedWorldlineUpdate': ('interval_v', 'interval_t', 'interval_w', 'sweeps_per_step'),
-    'FusedHammer': ('interval_phi', 'interval_n', 'sweeps_per_step', 'worms', 'p_n'),
-    'FusedClassicWorm': ('worms',),
     'ClassicWorm': ('max_moves',),
     'ChunkedWorm': ('moves_per_step',),
     'DoNothing': (),
@@ -120,13 +115,11 @@ def generator_from_spec(spec, action):
     if cls == 'KeepEvery':
         return KeepEvery(spec['n'], generator_from_spec(spec['generator'], action),
                          blocked_inline=spec['blocked_inline'])
-    if spec['family'] in ('villain_fused', 'worldline_fused'):
-        from ..generators import villain_fused, worldline_fused
-        family = {'villain_fused': villain_fused,
-                  'worldline_fused': worldline_fused}[spec['family']]
-    else:
-        family = {'base': gbase, 'villain': gvillain, 'worldline': gworldline}[spec['family']]
-    klass = getattr(family, cls)
+    family = {'base': gbase, 'villain': gvillain, 'worldline': gworldline}.get(spec['family'])
+    klass = getattr(family, cls, None)
+    if klass is None:
+        raise LookupError(f"generator {spec['family']}.{cls} does not exist in "
+                          f'supervillain_tpu {meta.version}')
     if cls == 'DoNothing':
         return klass()
     return klass(action, **spec['args'])
@@ -224,9 +217,15 @@ def ensemble_from_h5(group, strict=True):
     if 'final' in group:
         e._final = {k: np.asarray(group['final'][k]) for k in group['final']}
     if 'generator' in group.attrs:
-        e.generator = generator_from_spec(json.loads(group.attrs['generator']), action)
-        if 'generator_stats' in group.attrs:
-            e.generator._stats = json.loads(group.attrs['generator_stats'])
+        try:
+            e.generator = generator_from_spec(json.loads(group.attrs['generator']), action)
+        except LookupError as err:
+            # Draws and measurements stay readable; continuing the chain needs
+            # a generator this version has.
+            logger.warning(f'{group.name}: {err}; read without its generator.')
+        else:
+            if 'generator_stats' in group.attrs:
+                e.generator._stats = json.loads(group.attrs['generator_stats'])
     if 'next_key' in group:
         e._next_key = np.asarray(group['next_key'])
     if 'measured' in group:

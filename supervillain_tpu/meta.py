@@ -3,6 +3,6 @@ nickname = 'butte'
 
 author = 'supervillain-tpu developers'
 description = (
-    'TPU-native lattice Monte Carlo for the Villain model of the compact boson, '
+    'Accelerator lattice Monte Carlo for the Villain model of the compact boson, '
     'in the Villain and Worldline dual formulations with a Z_W vortex constraint.'
 )

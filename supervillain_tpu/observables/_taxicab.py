@@ -6,7 +6,7 @@ and observable/vortex.py:62-189).  Per displacement the path is the taxicab rout
 the full time separation first, then the full space separation (D=2 only, as in the
 reference).
 
-TPU reformulation: instead of per-displacement Python loops with fancy indexing, we
+Device reformulation: instead of per-displacement Python loops with fancy indexing, we
 precompute *padded* per-displacement gather tables (direction, offset, sign) once per
 lattice on the host, and the measurement becomes a single batched gather + reduction,
 chunked over displacement rows with ``lax.map`` to bound memory.

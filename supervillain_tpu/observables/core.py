@@ -8,12 +8,10 @@ observables), forming a transparent dataflow DAG; ``DerivedQuantity`` does the s
 for :class:`~supervillain_tpu.analysis.Bootstrap`, consuming post-resampling
 expectation values.
 
-TPU reformulation: a measurement function is a *pure per-configuration jnp function*
+Device reformulation: a measurement function is a *pure per-configuration jnp function*
 ``measure(S, *deps)``; the descriptor evaluates it across the whole ensemble with one
 ``jax.vmap`` (or ``lax.map`` when the class sets ``sequential = True`` — for
-gather-heavy correlators whose vmapped memory footprint would blow up).  Complex
-results are shipped to the host as (real, imag) pairs because some TPU runtimes
-cannot transfer complex buffers.
+gather-heavy correlators whose vmapped memory footprint would blow up).
 """
 
 from __future__ import annotations
@@ -36,13 +34,6 @@ def progress(iterable, **kwargs):
     return iterable
 
 
-def _to_host(value):
-    """Device → host, splitting complex values (TPU runtimes may not transfer them)."""
-    if jnp.iscomplexobj(value):
-        return np.asarray(value.real) + 1j * np.asarray(value.imag)
-    return np.asarray(value)
-
-
 def _measure_columns(measure, action, deps, sequential=False):
     """Evaluate a per-configuration measurement across the draw axis."""
     dev_deps = [jnp.asarray(d) for d in deps]
@@ -55,7 +46,7 @@ def _measure_columns(measure, action, deps, sequential=False):
         values = jax.lax.map(lambda xs: fn(*xs), tuple(dev_deps))
     else:
         values = jax.vmap(single)(*dev_deps)
-    return _to_host(values)
+    return np.asarray(values)
 
 
 class Observable:

@@ -12,6 +12,28 @@ from .core import Observable
 from ._taxicab import spin_tables, vortex_tables
 
 
+def villain_numpy(kappa, phi, n):
+    r"""Plain float64 NumPy evaluation of one Villain configuration's
+    ``ActionDensity``, ``WindingSquared`` and ``Spin_Spin``, written from the
+    definitions and sharing no code with the jnp measurements: links
+    ``dφ - 2πn`` by forward differences, the 2-form ``dn`` on every
+    orientation ``μ < ν``, and the spin correlator
+    ``(1/Λ) Σ_x e^{-iφ(x)} e^{iφ(x-r)}`` as the transform of the power spectrum.
+    Any D; ``phi`` is ``(1, *dims)`` and ``n`` is ``(D, *dims)``."""
+    phi = np.asarray(phi, dtype=np.float64)[0]
+    n = np.asarray(n, dtype=np.float64)
+    D = phi.ndim
+    sites = phi.size
+    links = [np.roll(phi, -1, axis=mu) - phi - 2 * np.pi * n[mu] for mu in range(D)]
+    action = 0.5 * kappa * sum((l ** 2).sum() for l in links) / sites
+    dn = [(np.roll(n[nu], -1, axis=mu) - n[nu]) - (np.roll(n[mu], -1, axis=nu) - n[mu])
+          for mu in range(D) for nu in range(mu + 1, D)]
+    winding = np.mean(np.stack(dn) ** 2)
+    power = np.abs(np.fft.fftn(np.exp(1j * phi))) ** 2
+    spin = np.fft.fftn(power) / sites ** 2
+    return {'ActionDensity': action, 'WindingSquared': winding, 'Spin_Spin': spin}
+
+
 def _dense_stencils(tables, L):
     """Expand padded gather tables into dense 1-form stencils, one per displacement:
     shape (N, N, D, N, N)."""

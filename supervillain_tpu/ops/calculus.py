@@ -6,7 +6,7 @@ aggregators ``face_sum``/``coface_sum``, Hodge–de Rham Laplacian, Hodge ``star
 
 Semantics match the reference exactly (conventions documented at
 /root/reference/supervillain/lattice/compact.py:973-1495 and lattice/reference.py),
-but the implementation is TPU-idiomatic: every operator is a *static* Python loop over
+but the implementation is accelerator-idiomatic: every operator is a *static* Python loop over
 ``jnp.roll`` shift-and-accumulate terms generated from the lattice incidence tables.
 Under ``jit`` XLA fuses the whole loop into a handful of elementwise kernels; there is
 no table-driven gather at runtime and no per-site work on the host.

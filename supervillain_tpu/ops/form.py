@@ -2,7 +2,7 @@
 
 The reference exposes a ``Form`` ndarray subclass whose degree and lattice survive
 elementwise ufuncs (/root/reference/supervillain/lattice/compact.py:665-897).  On the
-TPU compute path this framework deliberately uses *plain* arrays — JAX transformations
+device compute path this framework deliberately uses *plain* arrays — JAX transformations
 must not depend on runtime array subclassing, and degree is static call-site metadata
 (see PARITY.md §2.1).  ``Form`` is the *host* half of that split: a NumPy subclass for
 interactive work, measurement post-processing, and plotting, with the reference's API

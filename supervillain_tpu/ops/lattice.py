@@ -5,8 +5,8 @@ with the leading axis indexing the C(D,p) components, listed lexicographically b
 sorted tuple of "form directions" (capability parity with the reference's compact
 layout, /root/reference/supervillain/lattice/compact.py:60-190).
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 * The ``Lattice`` itself is *static metadata*: hashable, compared by ``(D, N)``, and
   closed over by jitted functions.  All incidence tables, checkerboard masks, and
   coordinate arrays are host-side NumPy constants baked into the trace.
@@ -14,7 +14,7 @@ TPU-first design notes
   must not depend on runtime array types).  Degree is tracked statically by callers.
 * All operators in :mod:`supervillain_tpu.ops.calculus` are built from the incidence
   tables computed here as static Python loops over ``jnp.roll`` terms, which XLA fuses
-  into single elementwise kernels on TPU.
+  into single elementwise kernels.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ operations.
 
 The reference's input-sparse ``delta_sparse``/``d_sparse`` and output-sparse
 ``coface_sum_at``/``face_sum_at`` exist to avoid O(volume) NumPy work per CPU
-proposal.  On TPU the masked dense forms *are* the fast path (everything fuses into
+proposal.  On an accelerator the masked dense forms *are* the fast path (everything fuses into
 whole-lattice vector ops), so these functions exist for API parity and for host-side
 code that wants the reference's calling convention: they are numerically identical
 to applying the dense operator to the equivalent sparse form (the reference's own

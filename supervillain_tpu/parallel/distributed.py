@@ -1,7 +1,7 @@
 """Multi-host initialization helpers.
 
-On a TPU pod slice, call :func:`initialize` once per process before building
-meshes; ``jax.devices()`` then spans all hosts and every mesh/sharding in
+With several processes (one per host, or one per GPU), call :func:`initialize`
+once per process before building meshes; ``jax.devices()`` then spans all hosts and every mesh/sharding in
 :mod:`supervillain_tpu.parallel` works unchanged (chains shard across the global
 device list; statistics reductions become cross-host psums)."""
 
@@ -11,8 +11,9 @@ import jax
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
-    """``jax.distributed.initialize`` with pass-through arguments (TPU pods
-    auto-discover all three when launched through the usual runtimes)."""
+    """``jax.distributed.initialize`` with pass-through arguments.  Where no
+    cluster manager describes the job, pass all three explicitly
+    (``coordinator_address='localhost:<port>'`` on a single host)."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs['coordinator_address'] = coordinator_address

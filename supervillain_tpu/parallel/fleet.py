@@ -19,6 +19,35 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from .mesh import chain_mesh
 
 
+#: Truncated-worm fraction above which inline worm histograms should not be
+#: used quantitatively (the short-separation bias scales with this fraction).
+TRUNCATION_BUDGET = 1e-3
+
+
+def check_truncation_budget(truncated, total_worms, *, budget=TRUNCATION_BUDGET,
+                            context=''):
+    """Warn loudly when the truncated fraction of worms exceeds ``budget``.
+
+    Capped worms (``ClassicWorm(max_moves=...)``) roll back exactly (the
+    sampled distribution is unbiased) but their *histogram tallies are kept*,
+    so the inline Vortex_Vortex / Spin_Spin correlators carry a
+    short-separation bias proportional to the truncated fraction.  Production
+    guidance (generators/villain.py ClassicWorm docstring): keep it ≲ 1e-3 or
+    raise ``max_moves``.  Returns the fraction.
+    """
+    total_worms = max(1, int(total_worms))
+    frac = float(truncated) / total_worms
+    if frac > budget:
+        import warnings
+        warnings.warn(
+            f'{context}{float(truncated):.0f}/{total_worms} worms truncated '
+            f'(fraction {frac:.2e} > {budget:g}) — inline worm histograms '
+            f'carry short-separation bias at this point; raise '
+            f'max_moves or exclude the inline correlator from fits.',
+            stacklevel=2)
+    return frac
+
+
 class Fleet:
     """Draws from many independent chains: field columns of shape
     (kept, chains, ...), per-chain final configurations, pooled statistics."""
@@ -33,8 +62,7 @@ class Fleet:
 
     @property
     def chains(self):
-        first = next(iter(self.columns.values()))
-        return first.shape[1]
+        return next(iter(self.final.values())).shape[0]
 
     def __len__(self):
         return len(self.index)

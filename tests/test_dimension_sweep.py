@@ -107,7 +107,7 @@ def test_worldline_local_updates_separately_in_d(D, W):
 @pytest.mark.parametrize('D', (3, 4))
 def test_worldline_worm_in_d(D):
     """The XLA worm is dimension-general (2D directions + close), unlike the
-    D=2-only Pallas worm; δm = 0 must be restored on every kept draw."""
+    D=2-only worm; δm = 0 must be restored on every kept draw."""
     S = sv.Worldline(sv.Lattice(D, N), 0.8, W=1)
     e = sv.Ensemble(S).generate(6, gw.ClassicWorm(S), seed=D)
     for i in range(6):

@@ -285,7 +285,7 @@ def _enumerate_villain_exact_n(L, zcut):
 def test_exact_neighborhood_samples_exact_distribution():
     """χ² of the z-only ExactNeighborhoodUpdate chain (interval_phi = 0, φ
     frozen at 0) at W=∞ against the enumerated Boltzmann distribution over
-    exact forms n = dz — validating the new fused-Site+Exact compound kernel's
+    exact forms n = dz — validating the compound Site+Exact kernel's
     proposal symmetry and ΔS algebra end-to-end."""
     from supervillain_tpu.generators import villain as gv
 

@@ -2,8 +2,7 @@
 the reference runs its doc examples as tests (sphinx doctests / test drivers);
 these are the equivalent executable-documentation battery.  Each case runs the
 script's real `__main__` path via runpy with shrunken arguments, so argument
-parsing, fallback selection (fused kernels fall back to XLA on CPU), H5
-output, and the analysis tails are all exercised.
+parsing, default sizes, H5 output, and the analysis tails are all exercised.
 """
 
 import pathlib
@@ -72,13 +71,15 @@ def test_fleet_scan(tmp_path, monkeypatch):
                 monkeypatch)
 
 
-def test_bkt_scan_cpu_fallback(monkeypatch):
-    """The κ-scan's CPU fallback path (vmapped XLA NeighborhoodUpdate with the
-    fused-launch signature), including the packing-divisibility guard."""
-    mod = run_example('bkt-scan.py',
-                      ['--L', '8', '--chains', '4', '--therm-sweeps', '20',
-                       '--records', '3', '--thin', '4', '--kappas', '0.6',
-                       '--W', '2'], monkeypatch)
+def test_bkt_scan_cpu_fallback(monkeypatch, capsys):
+    """The κ-scan at W=2 through sample_fleet: neighborhood sweeps plus one
+    capped worm per record, with the inline vortex correlator and the
+    truncation budget."""
+    run_example('bkt-scan.py',
+                ['--L', '8', '--chains', '4', '--therm-sweeps', '20',
+                 '--records', '3', '--thin', '4', '--kappas', '0.6',
+                 '--W', '2'], monkeypatch)
+    assert 'χ_V/L^(D-2Δ_V)' in capsys.readouterr().out
 
 
 def test_d4_topology(monkeypatch):
@@ -95,12 +96,19 @@ def test_d4_topology_winf(monkeypatch):
                  '--cut', '2', '--kappas', '0.4', '--W', 'inf'], monkeypatch)
 
 
-def test_winf_line_cpu_exits_cleanly(monkeypatch):
+def test_winf_line_cpu_exits_cleanly(monkeypatch, capsys):
+    """The W=∞ line at its CPU default sizes: a real two-volume run."""
     run_example('winf-line.py', [], monkeypatch)
+    assert 'η_eff per volume pair' in capsys.readouterr().out
 
 
-def test_pod_fleet_cpu_exits_cleanly(monkeypatch):
-    run_example('pod-fleet.py', ['--chains', '4'], monkeypatch)
+def test_pod_fleet_cpu_exits_cleanly(tmp_path, monkeypatch):
+    """The pod fleet at its CPU default sizes, with HDF5 output."""
+    import h5py
+    run_example('pod-fleet.py', ['--chains', '4', '--h5', str(tmp_path / 'pod.h5')],
+                monkeypatch)
+    with h5py.File(tmp_path / 'pod.h5') as f:
+        assert f['fleet/columns/ActionDensity'].shape[1] == 4
 
 
 def test_w3_analysis(monkeypatch, capsys):

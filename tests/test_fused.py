@@ -1,49 +1,10 @@
-"""Pallas-fused sweep kernel tests.
-
-On the CPU test backend the kernel cannot run (no hardware PRNG), so here we cover
-the transparent XLA fallback; the TPU statistical-agreement check lives in
-tests/tpu/test_fused_tpu.py and runs on real hardware (driven by /verify and bench).
-"""
+"""Zero-inflated integer proposals (``p_n`` / ``p_z``) of the neighborhood
+updates: symmetric, valid, and faster-mixing at large κ."""
 
 import numpy as np
-import pytest
 
 import supervillain_tpu as sv
-from supervillain_tpu.generators import FusedNeighborhoodUpdate
 from supervillain_tpu.generators import villain as gv
-
-
-def test_fused_falls_back_on_cpu():
-    S = sv.Villain(sv.Lattice2D(4), 0.5, W=1)
-    G = FusedNeighborhoodUpdate(S, sweeps_per_step=2)
-    assert G._fallback is not None
-    e = sv.Ensemble(S).generate(10, G, seed=3)
-    for i in range(10):
-        assert S.valid({'n': e.n[i]})
-    assert float(G._stats['NeighborhoodUpdate']['proposed']) == 10 * 2 * 16
-
-
-def test_fused_matches_xla_distribution_cpu():
-    """Fallback path samples the same distribution as NeighborhoodUpdate by
-    construction (identical kernel); spot-check the chain statistics."""
-    S = sv.Villain(sv.Lattice2D(4), 0.2, W=1)
-    a = sv.Ensemble(S).generate(400, FusedNeighborhoodUpdate(S), seed=7).cut(100)
-    b = sv.Ensemble(S).generate(400, gv.NeighborhoodUpdate(S), seed=8).cut(100)
-    ba = sv.Bootstrap(a.every(3), draws=100, seed=1)
-    bb = sv.Bootstrap(b.every(3), draws=100, seed=2)
-    ma, ea = ba.estimate('ActionDensity')
-    mb, eb = bb.estimate('ActionDensity')
-    assert abs(ma - mb) / np.hypot(ea, eb) < 5
-
-
-def test_worldline_fused_falls_back_on_cpu():
-    from supervillain_tpu.generators import FusedWorldlineUpdate
-    S = sv.Worldline(sv.Lattice2D(4), 0.5, W=2)
-    G = FusedWorldlineUpdate(S, sweeps_per_step=2)
-    assert G._fallback is not None
-    e = sv.Ensemble(S).generate(8, G, seed=9)
-    for i in range(8):
-        assert S.valid({'m': e.m[i]})
 
 
 def test_zero_inflated_neighborhood_is_valid_and_mixes_faster():
@@ -79,96 +40,3 @@ def test_zero_inflated_int_proposal_is_symmetric():
     assert abs(p_plus - p_minus) < 0.01        # symmetric
     assert abs(p_plus + p_minus - 0.3) < 0.01  # inflation rate
     assert set(np.unique(draws)) <= {-2, -1, 0, 1, 2}
-
-
-def test_fused_hammer_fallback_runs_and_specs():
-    """Off-TPU, FusedHammer falls back to the XLA
-    Sequentially(KeepEvery(sweeps, NeighborhoodUpdate), ClassicWorm) with the
-    same stats tags, and its generator spec round-trips."""
-    from supervillain_tpu.generators.villain_fused import FusedHammer
-    from supervillain_tpu.io import generator_spec, generator_from_spec
-    S = sv.Villain(sv.Lattice2D(4), 0.5, W=1)
-    G = FusedHammer(S, interval_phi=1.0, interval_n=1, sweeps_per_step=3,
-                    worms=2, p_n=0.25)
-    assert G._fallback is not None
-    e = sv.Ensemble(S).generate(6, G, seed=3)
-    assert len(e) == 6
-    for i in range(6):
-        assert S.valid({'n': e.n[i]})
-    assert set(G.init_stats()) == {'NeighborhoodUpdate', 'ClassicWorm'}
-    # Inline worm observables ride through the fallback too.
-    assert 'Vortex_Vortex' in e.configuration.fields
-    spec = generator_spec(G)
-    G2 = generator_from_spec(spec, S)
-    assert generator_spec(G2) == spec
-    assert G2.worms == 2 and G2.sweeps_per_step == 3 and G2.p_n == 0.25
-
-
-def test_fused_hammer_winf_falls_back_to_exact_stack():
-    """At W=∞ the Hammer runs z-mode sweeps + worms (closed worms preserve
-    dn = 0 exactly); the CPU fallback composes ExactNeighborhoodUpdate with
-    the W-agnostic ClassicWorm."""
-    from supervillain_tpu.generators.villain_fused import FusedHammer
-    S = sv.Villain(sv.Lattice2D(4), 0.5 / np.pi, W=float('inf'))
-    G = FusedHammer(S, worms=1)
-    assert G._fallback is not None
-    names = [type(g).__name__ for g in G._fallback.generators]
-    assert 'ExactNeighborhoodUpdate' in names and 'ClassicWorm' in names
-    e = sv.Ensemble(S).generate(10, G, seed=8)
-    from supervillain_tpu.ops import calculus as calc
-    for i in range(10):
-        dn = np.asarray(calc.d(S.Lattice, 1, e.n[i]))
-        assert np.abs(dn).max() == 0  # dn = 0 exact at W=inf
-
-
-def test_fused_hammer_not_sequentially_composable():
-    """FusedHammer keeps stats under two tags (its sweep and worm sections); a
-    cryptic KeyError inside Sequentially is turned into a clear error."""
-    from supervillain_tpu.generators.villain_fused import FusedHammer
-    from supervillain_tpu.generators.combining import Sequentially
-    from supervillain_tpu.generators import villain as gv
-    S = sv.Villain(sv.Lattice2D(4), 0.5, W=1)
-    with pytest.raises(ValueError, match='self-contained composite'):
-        Sequentially([FusedHammer(S), gv.CohomologyUpdate(S)])
-
-
-def test_worldline_fused_worm_falls_back_on_cpu():
-    from supervillain_tpu.generators import FusedWorldlineWorm
-    S = sv.Worldline(sv.Lattice2D(4), 0.5, W=2)
-    G = FusedWorldlineWorm(S)
-    assert G._fallback is not None
-    e = sv.Ensemble(S).generate(20, G, seed=5)
-    for i in range(0, 20, 4):
-        assert S.valid({'m': e.m[i]})
-    # Inline worm observables flow through the fallback too.
-    assert np.asarray(e.Spin_Spin).shape == (20, 4, 4)
-
-
-def test_worldline_fused_hammer_falls_back_on_cpu():
-    from supervillain_tpu.generators import FusedWorldlineHammer
-    S = sv.Worldline(sv.Lattice2D(4), 0.5, W=2)
-    G = FusedWorldlineHammer(S, sweeps_per_step=2, worms=1)
-    assert G._fallback is not None
-    e = sv.Ensemble(S).generate(10, G, seed=6)
-    for i in range(10):
-        assert S.valid({'m': e.m[i]})
-    # The fallback composes the full reference Hammer stack with the same
-    # per-step sweep density as the kernel: sweeps_per_step of each local
-    # pass (KeepEvery), then the worm.
-    parts = G._fallback.generators
-    names = [type(g).__name__ for g in parts]
-    assert names == ['KeepEvery', 'KeepEvery', 'KeepEvery', 'ClassicWorm']
-    inner = [type(g.generator).__name__ for g in parts[:3]]
-    assert inner == ['VortexUpdate', 'CoexactUpdate', 'WrappingUpdate']
-    assert all(g.n == 2 for g in parts[:3])
-
-
-def test_worldline_fused_hammer_winf_fallback():
-    from supervillain_tpu.generators import FusedWorldlineHammer
-    S = sv.Worldline(sv.Lattice2D(4), 0.5 / np.pi, W=float('inf'))
-    G = FusedWorldlineHammer(S, interval_v=0.5)
-    assert G._fallback is not None
-    e = sv.Ensemble(S).generate(10, G, seed=7)
-    for i in range(10):
-        assert S.valid({'m': e.m[i]})
-    assert np.abs(np.asarray(e.v)).max() > 0  # float v moved

@@ -167,40 +167,6 @@ def test_fleet_inline_thinning_uses_blocked_average():
     np.testing.assert_allclose(fleet.columns['counter'][:, 0], [2.5, 6.5, 10.5])
 
 
-def test_sample_fused_fleet_shards_over_mesh():
-    """The fused fleet path shards the chain batch over the mesh's ``chains``
-    axis under shard_map and decorrelates per-device seeds.  The Pallas kernel
-    cannot run on CPU, so a mock kernel with the same signature stands in —
-    this pins the SPMD plumbing (specs, sharding, seed folding), and
-    tpu_tests/test_fused_tpu.py runs the real kernel through the same path."""
-    import jax
-    import jax.numpy as jnp
-    from supervillain_tpu.parallel import chain_mesh
-    from supervillain_tpu.parallel.fused_fleet import sample_fused_fleet
-
-    def mock_kernel(seed, phi, n, *, N, kappa, W, interval_phi, interval_n,
-                    sweeps, chains_per_program=1, interpret=False, p_n=None):
-        B = phi.shape[0]
-        # Seed-dependent drift so per-device seed folding is observable.
-        phi = phi + (seed % 9973).astype(jnp.float32)
-        acc = jnp.full((B,), 0.5 * N * N * sweeps, jnp.float32)
-        inline = {'ActionDensity': phi.mean(axis=(1, 2, 3)),
-                  'WindingSquared': jnp.zeros((B,), jnp.float32)}
-        return phi, n, acc, inline
-
-    S = sv.Villain(sv.Lattice2D(8), 0.5, W=1)
-    mesh = chain_mesh()
-    assert mesh.devices.size == 8
-    fleet = sample_fused_fleet(S, chains=16, steps=2, thin=3, seed=1,
-                               mesh=mesh, kernel_fn=mock_kernel)
-    assert fleet.columns['ActionDensity'].shape == (2, 16)
-    # Every device folded a different offset into the seed: the 8 shards (2
-    # chains each) carry 8 distinct drifts.
-    drifts = np.unique(np.round(fleet.columns['ActionDensity'][0], 6))
-    assert len(drifts) == 8
-    assert fleet.stats['NeighborhoodUpdate']['acceptance'] == 0.5
-
-
 def test_fleet_unbounded_worm_raises_by_default():
     """A bare (unbounded) ClassicWorm vmapped over many chains is the measured
     fleet pathology (every step waits for the slowest chain's worm).  Silently
@@ -273,10 +239,10 @@ def test_hammer_fleet_composition():
 
 
 def test_truncation_budget_warning():
-    """check_truncation_budget (VERDICT r4 #8): silent below the budget, a
+    """check_truncation_budget: silent below the budget, a
     loud UserWarning above it, and the returned fraction is exact."""
     import warnings
-    from supervillain_tpu.parallel.fused_fleet import check_truncation_budget
+    from supervillain_tpu.parallel import check_truncation_budget
 
     with warnings.catch_warnings():
         warnings.simplefilter('error')  # any warning -> failure
